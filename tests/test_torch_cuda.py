@@ -1,0 +1,55 @@
+"""CUDA kernels vs their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one.  The module
+imports no JAX, so it runs on the GPU machine (which has none) with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
+(the suite's conftest imports JAX).
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+from linea_stark_tpu_torch import kernels
+from linea_stark_tpu_torch.challenger import HashChallenger
+from linea_stark_tpu_torch.field import fr
+from linea_stark_tpu_torch.kernels import field_ops as kf
+from linea_stark_tpu_torch.prover import prove, verify
+from linea_stark_tpu_torch.trace.raw_trace import build_trace
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def test_kernels_match_plain_small_shapes(cuda):
+    rows = chip_smoke.check_kernels(cuda, small=True)
+    assert [r["name"] for r in rows] == list(kernels.LAUNCHES)
+    assert all(r["max_abs_err"] == 0 for r in rows)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    a = fr.pack_ints([1, 2, 3, 4]).to(cuda)
+    with pytest.raises(ValueError):
+        kf.binop("mul", a.to(torch.int64), a)
+    with pytest.raises(ValueError):
+        kf.binop("mul", a[:, ::2], a)
+    with pytest.raises(ValueError):
+        kf.binop("mul", a, a[:, :2])
+
+
+def test_prove_on_cuda_equals_cpu_bytes(cuda):
+    config, raw, alpha, delta = chip_smoke.bench_inputs(4)
+    proofs = []
+    for dev in (torch.device("cpu"), cuda):
+        built = build_trace([raw], [], alpha, delta, device=dev)
+        kernels.reset_launches()
+        proofs.append(prove(config, built.air, built.matrix, [alpha, delta], HashChallenger()))
+    assert all(v > 0 for v in kernels.launches().values())
+    assert proofs[0].to_bytes() == proofs[1].to_bytes()
+    verify(config, built.air, proofs[1], [alpha, delta], HashChallenger())

@@ -52,8 +52,12 @@ class StarkConfig:
     quotient_chunks: int = None
 
     def mmcs_hasher(self):
-        from .hash.hasher import Poseidon2Hasher
+        """The Merkle hasher; the challenger stays Poseidon2 (``hash_params``)
+        with either."""
+        from .hash.hasher import KeccakHasher, Poseidon2Hasher
 
+        if self.hasher == "keccak":
+            return KeccakHasher()
         if self.hasher != "poseidon2":
-            raise NotImplementedError(f"hasher {self.hasher!r} is not ported")
+            raise ValueError(f"unknown hasher {self.hasher!r}")
         return Poseidon2Hasher(self.hash_params)

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .. import fr_ops as fo
+from ..device import resolve
 
 
 def be_bytes_to_words(data: np.ndarray) -> torch.Tensor:
@@ -26,5 +27,5 @@ def be_bytes_to_words(data: np.ndarray) -> torch.Tensor:
 
 def decode_be_bytes_mod_order(data: np.ndarray, device=None) -> torch.Tensor:
     """(N, 32) uint8 big-endian scalars -> (8, N) Montgomery tensor on
-    ``device``."""
-    return fo.to_mont(be_bytes_to_words(data).to(device))
+    ``device`` (the CUDA card when None)."""
+    return fo.to_mont(be_bytes_to_words(data).to(resolve(device)))

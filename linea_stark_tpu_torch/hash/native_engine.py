@@ -1,12 +1,12 @@
 """ctypes bindings for the native host engine (``native/fasthash.c``).
 
 Jax-free copy of ``linea_stark_tpu/hash/native_engine.py``: batch Fr
-arithmetic and Poseidon2 sweeps on the host CPU, used by the FRI host tail
-and the verifier's Merkle-path sweeps.  Unlike the reference, this copy
-builds ``native/fasthash.c`` itself, into ``build/linea_stark_tpu_torch/``
+arithmetic, Poseidon2 and Keccak-256 sweeps on the host CPU, used by the FRI
+host tail and the verifier's Merkle-path sweeps.  Unlike the reference, this
+copy builds ``native/fasthash.c`` itself, into ``build/linea_stark_tpu_torch/``
 with a constants header generated from this package's constants, and a
-failed build or load raises: it never turns the engine off silently.  The
-Keccak sweeps are left out with the Keccak hasher.
+failed build or load raises: it never turns the engine off silently.
+``kc_hash_columns`` also refuses rows wider than the C sweep reads.
 
 Value layout at the ABI: ``(n, 4)`` uint64 little-endian limb rows holding
 canonical (non-Montgomery) residues mod r; an ``(8, n)`` int32 tensor's
@@ -144,6 +144,11 @@ def _load():
         ("p2_merkle_roots",
          [_U64P, ctypes.c_int, ctypes.c_int, _U64P, _U64P, _U64P, _U32P,
           ctypes.c_size_t, ctypes.c_size_t]),
+        ("kc_hash_columns", [_U64P, ctypes.c_size_t, ctypes.c_size_t, _U64P]),
+        ("kc_compress_batch", [_U64P, _U64P, _U64P, ctypes.c_size_t]),
+        ("kc_tree_levels", [_U64P, ctypes.c_size_t, _U64P]),
+        ("kc_merkle_roots",
+         [_U64P, _U64P, _U64P, _U32P, ctypes.c_size_t, ctypes.c_size_t]),
     ):
         getattr(lib, name).argtypes = argtypes
     _LIB = lib
@@ -330,6 +335,11 @@ def tree_levels(leaves: np.ndarray, params: Poseidon2Params) -> list:
         _ptr(c), params.rounds_f, params.rounds_p,
         _ptr(np.ascontiguousarray(leaves)), n, _ptr(packed),
     )
+    return _levels(packed, n)
+
+
+def _levels(packed: np.ndarray, n: int) -> list:
+    """Split a packed (n - 1, 4) level buffer into [(n/2, 4), ..., (1, 4)]."""
     levels = []
     off, size = 0, n
     while size > 1:
@@ -337,6 +347,66 @@ def tree_levels(leaves: np.ndarray, params: Poseidon2Params) -> list:
         levels.append(packed[off : off + size])
         off += size
     return levels
+
+
+# ---------------------------------------------------------------------------
+# Keccak-256 sweeps (field-element digests; hash/keccak.py semantics)
+# ---------------------------------------------------------------------------
+
+# native/fasthash.c kc_hash_columns gathers each row into a 64-value scratch
+# buffer and drops any column past it without a word.
+KC_MAX_COLUMNS = 64
+
+
+def kc_hash_columns(cols: np.ndarray) -> np.ndarray:
+    """cols: (w, n, 4) canonical -> (n, 4) keccak field digests; raises for
+    w > 64, which the C sweep would silently truncate."""
+    lib = _load()
+    w, n = cols.shape[0], cols.shape[1]
+    if w > KC_MAX_COLUMNS:
+        raise ValueError(
+            f"kc_hash_columns hashes at most {KC_MAX_COLUMNS} columns, got {w}")
+    out = np.empty((n, 4), dtype=np.uint64)
+    lib.kc_hash_columns(_ptr(np.ascontiguousarray(cols)), w, n, _ptr(out))
+    return out
+
+
+def kc_compress(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    lib = _load()
+    out = np.empty_like(a)
+    lib.kc_compress_batch(
+        _ptr(np.ascontiguousarray(a)), _ptr(np.ascontiguousarray(b)),
+        _ptr(out), a.shape[0],
+    )
+    return out
+
+
+def kc_tree_levels(leaves: np.ndarray) -> list:
+    """All digest levels above (n, 4) leaves -> [(n/2, 4), ..., (1, 4)]."""
+    lib = _load()
+    n = leaves.shape[0]
+    packed = np.empty((n - 1, 4), dtype=np.uint64)
+    lib.kc_tree_levels(_ptr(np.ascontiguousarray(leaves)), n, _ptr(packed))
+    return _levels(packed, n)
+
+
+def kc_merkle_roots(
+    digests: np.ndarray,
+    sibs: np.ndarray,
+    parity_mask: np.ndarray,
+    lens: np.ndarray,
+) -> np.ndarray:
+    """Keccak twin of :func:`merkle_roots` (same ABI minus constants)."""
+    lib = _load()
+    d = np.ascontiguousarray(digests).copy()
+    q, max_len = sibs.shape[0], sibs.shape[1]
+    lib.kc_merkle_roots(
+        _ptr(d), _ptr(np.ascontiguousarray(sibs)),
+        _ptr(np.ascontiguousarray(parity_mask)),
+        np.ascontiguousarray(lens, dtype=np.uint32).ctypes.data_as(_U32P),
+        max_len, q,
+    )
+    return d
 
 
 def merkle_roots(

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their plain
 PyTorch versions.
 
-Every TPU kernel of the reference on the prove path maps onto one of four
+Every TPU kernel of the reference on the prove paths maps onto one of five
 CUDA kernels (sources in ``linea_stark_tpu_torch/csrc/``):
 
 ===================  ==========================================================
@@ -9,6 +9,7 @@ K1 ``fr_binop``      elementwise mul/add/sub, scalar and shared-table operands
 K2 weighted colsum   ``fr_wsum_partials`` + ``fr_sum_finish``
 K3 ``ntt_stage``     one Stockham stage, radix 2 or 4
 K4 Poseidon2         ``p2_permute``, ``p2_permute2``, ``p2_merkle_level``
+K5 ``kc_hash``       Keccak-256 field digests of rows (Keccak MMCS)
 ===================  ==========================================================
 
 Dispatch follows the tensor: a CPU tensor runs the plain version, a CUDA
@@ -26,6 +27,7 @@ LAUNCHES = {
     "p2_permute": 0,
     "p2_permute2": 0,
     "p2_merkle_level": 0,
+    "kc_hash": 0,
 }
 
 

@@ -2,7 +2,8 @@
 plain C interface, bound with ``ctypes``.
 
 The library is built at first use from ``linea_stark_tpu_torch/csrc/`` into
-``build/linea_stark_tpu_torch/libkernels.so`` for ``sm_90a``.  Nothing is
+``build/linea_stark_tpu_torch/libkernels.so`` for ``sm_90a``, one compiler
+process per source running side by side.  Nothing is
 built or imported when this module is imported.  A missing compiler or a
 failed build raises.
 """
@@ -12,13 +13,14 @@ from __future__ import annotations
 import ctypes
 import os
 import shutil
+import subprocess
 
 import torch
 
-from ..utils.build import BUILD_DIR, BuildError, compile_shared
+from ..utils.build import BUILD_DIR, BuildError, compile_shared, stale
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = ["field_ops.cu", "ntt.cu", "poseidon2.cu"]
+SOURCES = ["field_ops.cu", "ntt.cu", "poseidon2.cu", "keccak.cu"]
 HEADERS = ["fr.cuh"]
 TARGET = os.path.join(BUILD_DIR, "libkernels.so")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -38,6 +40,7 @@ _SIGNATURES = {
     "p2_permute": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P],
     "p2_permute2": [_P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P],
     "p2_merkle_level": [_P, _LL, _P, _LL, _I, _I, _P],
+    "kc_hash": [_P, _P, _P, _I, _P, _LL, _P],
 }
 
 
@@ -54,18 +57,41 @@ def nvcc_path() -> str:
 
 def build(force: bool = False) -> str:
     """Compile the kernels if any source is newer than the library (always
-    with ``force``); returns the compiler's output (register and spill
-    counts from ``-Xptxas -v``)."""
+    with ``force``): one ``nvcc -c`` per source, all started together, then
+    one link.  Returns the compilers' output (register and spill counts from
+    ``-Xptxas -v``)."""
     global BUILD_LOG
-    cmd = [nvcc_path(), ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC]
-    BUILD_LOG = compile_shared(
-        cmd,
-        [os.path.join(CSRC, s) for s in SOURCES],
-        TARGET,
-        deps=[os.path.join(CSRC, h) for h in HEADERS],
-        force=force,
-    )
+    sources = [os.path.join(CSRC, s) for s in SOURCES]
+    deps = [os.path.join(CSRC, h) for h in HEADERS]
+    if not force and not stale(TARGET, sources + deps):
+        BUILD_LOG = ""
+        return BUILD_LOG
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = os.getpid()
+    jobs = []
+    for src in sources:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-I", CSRC, "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"(exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+    objs = [obj for _cmd, obj, _proc in jobs]
+    try:
+        if failed:
+            raise BuildError("build of libkernels.so failed " + "\n".join(failed))
+        logs.append(compile_shared([nvcc, ARCH, "-shared"], objs, TARGET, force=True))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    BUILD_LOG = "".join(logs)
     return BUILD_LOG
 
 

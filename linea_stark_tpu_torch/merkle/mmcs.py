@@ -2,9 +2,10 @@
 ``linea_stark_tpu/merkle/mmcs.py`` for single-height commitments.
 
 Leaf j hashes row j of every committed matrix (columns concatenated in
-matrix order) with the rate-2 sponge; each level above compresses adjacent
-pairs, ``level[k+1][j] = compress(level[k][2j], level[k][2j+1])``.  Levels
-stay in natural order on the device (one K4 ``merkle_level`` launch each);
+matrix order) with the hasher (Poseidon2's rate-2 sponge or Keccak-256);
+each level above compresses adjacent pairs,
+``level[k+1][j] = compress(level[k][2j], level[k][2j+1])``.  Levels stay in
+natural order on the device (one K4 ``merkle_level`` or K5 launch each);
 the reference's bit-reversed subtree buffer existed to bound TPU compile
 time and changes neither roots nor openings.
 """
@@ -19,7 +20,7 @@ import torch
 
 from ..field import fr
 from ..hash import poseidon2 as p2
-from ..hash.hasher import make_hasher
+from ..hash.hasher import KeccakHasher, make_hasher
 
 
 @dataclass
@@ -127,15 +128,23 @@ def open_at(tree: MerkleTree, indices: Sequence[int]) -> list:
 
 def verify_openings_batch(requests, hasher=None) -> bool:
     """Verify many single-matrix openings in two native-engine calls: leaf
-    sponges grouped by row width, then one sweep over every authentication
-    path (``_verify_openings_native`` of the reference).
+    hashes grouped by row width, then one sweep over every authentication
+    path (``_verify_openings_native`` of the reference), with the Poseidon2
+    or the Keccak sweeps as ``hasher`` says.
 
     ``requests``: [(root_int, (height, width), BatchOpening)].  Returns True
     iff every opening verifies."""
     from ..hash import native_engine as ne
 
     h = make_hasher(hasher if hasher is not None else p2.DEFAULT_PARAMS)
-    params = h.params
+    if isinstance(h, KeccakHasher):
+        leaf_hash, path_roots = ne.kc_hash_columns, ne.kc_merkle_roots
+    else:
+        def leaf_hash(cols):
+            return ne.hash_columns(cols, h.params)
+
+        def path_roots(*args):
+            return ne.merkle_roots(*args, h.params)
     if not requests:
         return True
     q = len(requests)
@@ -154,7 +163,7 @@ def verify_openings_batch(requests, hasher=None) -> bool:
                 for c in range(w)
             ]
         )
-        dig[idxs] = ne.hash_columns(cols, params)
+        dig[idxs] = leaf_hash(cols)
     max_l = max(len(r[2].siblings) for r in requests)
     sibs = np.zeros((q, max_l, 4), np.uint64)
     mask = np.zeros((q, 4), np.uint64)
@@ -167,5 +176,5 @@ def verify_openings_batch(requests, hasher=None) -> bool:
         for lvl in range(path_len):
             if (op.index >> lvl) & 1:
                 mask[k, lvl // 64] |= np.uint64(1) << np.uint64(lvl % 64)
-    got = ne.u64_to_ints(ne.merkle_roots(dig, sibs, mask, lens, params))
+    got = ne.u64_to_ints(path_roots(dig, sibs, mask, lens))
     return all(g == r for g, (r, _, _) in zip(got, requests))

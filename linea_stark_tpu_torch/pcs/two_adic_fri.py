@@ -23,6 +23,7 @@ from ..field import fr, oracle
 from ..field.constants import R_MOD
 from ..fri.fold import fold_codeword, fold_pair_int
 from ..hash import native_engine as ne
+from ..hash.hasher import KeccakHasher
 from ..merkle import mmcs
 from ..ntt.ntt import _coset_scale, coset_lde, ntt, pad_coeffs, root_of_unity
 from ..utils.timing import span
@@ -70,7 +71,7 @@ class PcsData:
 @dataclass
 class TwoAdicFriPcs:
     fri: object                 # config.FriConfig
-    hasher: object              # hash.hasher.Poseidon2Hasher
+    hasher: object              # hash.hasher.Poseidon2Hasher or KeccakHasher
     shift: int
     transcript: str = "native"
     check_low_degree: bool = True
@@ -499,10 +500,14 @@ class _HostTail:
         The tree's matrix and levels stay on the host (CPU tensors)."""
         n = len(state)
         half = n // arity  # leaf count
-        params = self.hasher.params
         cols = state.reshape(arity, half, 4)
-        d = ne.hash_columns(cols, params)
-        ups = [d] + (ne.tree_levels(d, params) if half > 1 else [])
+        if isinstance(self.hasher, KeccakHasher):
+            d = ne.kc_hash_columns(cols)
+            ups = [d] + (ne.kc_tree_levels(d) if half > 1 else [])
+        else:
+            params = self.hasher.params
+            d = ne.hash_columns(cols, params)
+            ups = [d] + (ne.tree_levels(d, params) if half > 1 else [])
         levels = [fr.from_u64_rows(ne.to_mont(lv)) for lv in ups]
         grouped = fr.from_u64_rows(ne.to_mont(state)).reshape(8, arity, half)
         root = ne.u64_to_ints(ups[-1][-1:])[0]

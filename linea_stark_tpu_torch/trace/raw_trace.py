@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..air.gadgets import LineaAir
+from ..device import resolve
 from ..field import fr
 from ..field.codec import decode_be_bytes_mod_order
 from . import builders
@@ -42,12 +43,14 @@ def _decode_cols(cols, device) -> torch.Tensor:
 
 def build_trace(permutations: list, lookups: list, alpha: int, delta: int,
                 check: bool = True, device=None) -> BuiltTrace:
-    """Assemble the trace from raw permutation traces on ``device``.
+    """Assemble the trace from raw permutation traces on ``device`` (the
+    CUDA card when None: :func:`..device.default_device`).
 
     ``alpha``/``delta`` are the public challenges.  ``check`` enforces the
     reference's self-check (the check column ends at 1)."""
     if lookups:
         raise NotImplementedError("the lookup builder is not ported")
+    device = resolve(device)
     heights = [t.get_max_height() for t in permutations]
     assert heights, "no traces"
     height = _next_pow2(max(heights))

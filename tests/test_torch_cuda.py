@@ -14,6 +14,7 @@ from linea_stark_tpu_torch import kernels
 from linea_stark_tpu_torch.challenger import HashChallenger
 from linea_stark_tpu_torch.field import fr
 from linea_stark_tpu_torch.kernels import field_ops as kf
+from linea_stark_tpu_torch.kernels import keccak as kc
 from linea_stark_tpu_torch.prover import prove, verify
 from linea_stark_tpu_torch.trace.raw_trace import build_trace
 
@@ -28,9 +29,11 @@ def cuda():
 
 
 def test_kernels_match_plain_small_shapes(cuda):
-    rows = chip_smoke.check_kernels(cuda, small=True)
+    rows = chip_smoke.check_kernels(cuda, small=True, costs=chip_smoke.probe_costs(),
+                                    clock_mhz=chip_smoke.max_sm_clock_mhz())
     assert [r["name"] for r in rows] == list(kernels.LAUNCHES)
     assert all(r["max_abs_err"] == 0 for r in rows)
+    assert len(rows[-1]["modes"]) == 4  # kc_hash: leaves x2, level, compress
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -41,15 +44,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         kf.binop("mul", a[:, ::2], a)
     with pytest.raises(ValueError):
         kf.binop("mul", a, a[:, :2])
+    with pytest.raises(ValueError):
+        kc.hash_columns([a] * (kc.MAX_COLUMNS + 1))
+    with pytest.raises(ValueError):
+        kc.hash_columns([a, a[:, :2]])
+    with pytest.raises(ValueError):
+        kc.hash_columns([a, a.to(torch.int64)])
 
 
-def test_prove_on_cuda_equals_cpu_bytes(cuda):
-    config, raw, alpha, delta = chip_smoke.bench_inputs(4)
+@pytest.mark.parametrize("hasher", ["poseidon2", "keccak"])
+def test_prove_on_cuda_equals_cpu_bytes(cuda, hasher):
+    config, raw, alpha, delta = chip_smoke.bench_inputs(4, hasher)
     proofs = []
     for dev in (torch.device("cpu"), cuda):
         built = build_trace([raw], [], alpha, delta, device=dev)
         kernels.reset_launches()
         proofs.append(prove(config, built.air, built.matrix, [alpha, delta], HashChallenger()))
-    assert all(v > 0 for v in kernels.launches().values())
+    launches = kernels.launches()
+    assert all(launches[k] > 0 for k in chip_smoke.PATH_KERNELS[hasher])
     assert proofs[0].to_bytes() == proofs[1].to_bytes()
     verify(config, built.air, proofs[1], [alpha, delta], HashChallenger())

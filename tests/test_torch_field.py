@@ -90,7 +90,7 @@ def test_to_mont_reduces_any_256_bit_value():
     x = torch.from_numpy(words.view(np.int32))
     assert fr.unpack_ints(fo.to_mont(x)) == [v % R_MOD for v in big]
     data = np.frombuffer(b"".join(v.to_bytes(32, "big") for v in big), np.uint8).reshape(-1, 32)
-    assert fr.unpack_ints(decode_be_bytes_mod_order(data)) == [v % R_MOD for v in big]
+    assert fr.unpack_ints(decode_be_bytes_mod_order(data, device="cpu")) == [v % R_MOD for v in big]
 
 
 def test_inv_matches_reference():

@@ -66,6 +66,6 @@ def test_reference_regenerates_golden():
 @pytest.mark.slow  # minutes of plain int64 Poseidon2 on the CPU
 def test_port_cpu_reproduces_golden():
     config, raw, alpha, delta = chip_smoke.bench_inputs(12)
-    built = build_trace([raw], [], alpha, delta, check=False)
+    built = build_trace([raw], [], alpha, delta, check=False, device="cpu")
     proof = prove(config, built.air, built.matrix, [alpha, delta], HashChallenger())
     assert proof.to_bytes() == _golden()

@@ -23,6 +23,7 @@ from linea_stark_tpu.utils import cbor as ref_cbor
 from linea_stark_tpu_torch.air import gadgets
 from linea_stark_tpu_torch.challenger import HashChallenger
 from linea_stark_tpu_torch.field import constants, oracle
+from linea_stark_tpu_torch.hash import keccak as kk
 from linea_stark_tpu_torch.hash import native_engine as ne
 from linea_stark_tpu_torch.hash import np_poseidon2 as npp
 from linea_stark_tpu_torch.hash import poseidon2 as p2
@@ -78,6 +79,21 @@ def test_poseidon2_ints_match():
     for k in range(8):
         assert p2.hash_ints(vals[:k]) == ref_p2.hash_ints(vals[:k])
     assert p2.compress_ints(vals[0], vals[1]) == ref_p2.compress_ints(vals[0], vals[1])
+
+
+def test_keccak_oracle_matches():
+    from linea_stark_tpu.hash import keccak as ref_kk
+
+    assert kk._RC == ref_kk._RC and kk._ROT == ref_kk._ROT
+    assert kk.RATE_BYTES == ref_kk.RATE_BYTES
+    nprng = np.random.default_rng(0x4B)
+    for length in [0, 1, 31, 32, 135, 136, 137, 200, 271, 272, 273, 300]:
+        data = nprng.integers(0, 256, length, dtype=np.uint8).tobytes()
+        assert kk.keccak256(data) == ref_kk.keccak256(data), length
+    lanes = [rng.randrange(1 << 64) for _ in range(25)]
+    assert kk.keccak_f_ints(lanes) == ref_kk.keccak_f_ints(lanes)
+    vals = [rng.randrange(R) for _ in range(5)] + [0, R - 1]
+    assert kk.keccak256_field(vals) == ref_kk.keccak256_field(vals)
 
 
 def test_challenger_matches_over_random_transcript():

@@ -42,7 +42,7 @@ CFG = StarkConfig(fri=FriConfig(log_blowup=3, num_queries=QUERIES, proof_of_work
 
 
 def _port_proof(raw):
-    built = build_trace([raw], [], ALPHA, DELTA)
+    built = build_trace([raw], [], ALPHA, DELTA, device="cpu")
     return built, prove(CFG, built.air, built.matrix, [ALPHA, DELTA], HashChallenger())
 
 
@@ -65,7 +65,7 @@ def test_trace_and_quotient_match_reference():
     n = 8
     raw = gen_permutation_trace(3, n, seed=3)
     ref_built = ref_build_trace([raw], [], ALPHA, DELTA)
-    built = build_trace([raw], [], ALPHA, DELTA)
+    built = build_trace([raw], [], ALPHA, DELTA, device="cpu")
     assert torch.equal(built.matrix, fr.from_ref_planes(np.asarray(ref_built.matrix)))
     gamma = 0x1234567 % R_MOD
     ref_lde = ref_coset_lde(ref_built.matrix, 3, COSET_SHIFT)
@@ -114,6 +114,15 @@ def test_tampered_proof_rejected(port_proof_h8, tamper):
     tamper(bad)
     with pytest.raises(VerificationError):
         verify(CFG, built.air, bad, [ALPHA, DELTA], HashChallenger())
+
+
+def test_build_trace_runs_on_the_card_unless_asked_for_the_cpu():
+    raw = gen_permutation_trace(3, 8, seed=11)
+    if torch.cuda.is_available():
+        assert build_trace([raw], [], ALPHA, DELTA).matrix.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trace([raw], [], ALPHA, DELTA)
 
 
 def test_prove_device_argument(port_proof_h8):

@@ -20,7 +20,14 @@ Drives the port's main paths once on one CUDA card:
    the timed prove;
 5. the Keccak golden: phase 3 with the Keccak MMCS, held to
    ``tests/data/golden_perm3x3_h4096_b8_keccak.cbor``;
-6. the Keccak main path: phase 4 with ``BENCH_HASHER=keccak``.
+6. the Keccak main path: phase 4 with ``BENCH_HASHER=keccak``;
+7. the lookup golden: ``bench.py``'s ``BENCH_WORKLOAD=lookup`` workload (a
+   3-column LogUp lookup into one 3-column table, 12 trace columns) at 2^12
+   rows, held to ``tests/data/golden_lookup3_h4096_b8.cbor``;
+8. the lookup main path: phase 4 with that workload at 2^19 rows;
+9. the eager phase mode (``LINEA_FUSED=0``, restored afterwards): phase 3's
+   golden again, then phase 8, whose prove must launch ``fr_mul3_scalar``
+   at least twice (the quotient's and the open's batch inversions).
 
 Each phase prints its numbers; any failure raises.  The line before the
 last is the kernel table as JSON, the last line ``{"ok": true, "device":
@@ -30,6 +37,7 @@ runs phase 2 at small shapes (a quick check).
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -41,6 +49,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "data", "golden_perm3x3_h4096_b8.cbor")
 GOLDEN_KECCAK = os.path.join(HERE, "tests", "data", "golden_perm3x3_h4096_b8_keccak.cbor")
+GOLDEN_LOOKUP = os.path.join(HERE, "tests", "data", "golden_lookup3_h4096_b8.cbor")
 REPLACES = {
     "fr_binop": "linea_stark_tpu/kernels/pallas_field.py:74",
     "fr_weighted_colsum": "linea_stark_tpu/kernels/pallas_field.py:195",
@@ -49,6 +58,8 @@ REPLACES = {
     "p2_permute2": "linea_stark_tpu/kernels/pallas_poseidon2.py:247",
     "p2_merkle_level": "linea_stark_tpu/kernels/pallas_poseidon2.py:402",
     "kc_hash": "linea_stark_tpu/hash/hasher.py:143",
+    "fr_mul3_scalar": "linea_stark_tpu/kernels/pallas_field.py:241",
+    "fr_colsum": "linea_stark_tpu/kernels/pallas_field.py:133",
 }
 SOURCES = {
     "fr_binop": "linea_stark_tpu_torch/csrc/field_ops.cu",
@@ -58,16 +69,25 @@ SOURCES = {
     "p2_permute2": "linea_stark_tpu_torch/csrc/poseidon2.cu",
     "p2_merkle_level": "linea_stark_tpu_torch/csrc/poseidon2.cu",
     "kc_hash": "linea_stark_tpu_torch/csrc/keccak.cu",
+    "fr_mul3_scalar": "linea_stark_tpu_torch/csrc/field_ops.cu",
+    "fr_colsum": "linea_stark_tpu_torch/csrc/field_ops.cu",
 }
 # Kernels each main path must launch (the Keccak path hashes with K5 only;
-# its challenger, like the reference's, is Poseidon2 over host ints).
+# its challenger, like the reference's, is Poseidon2 over host ints).  No
+# prove path runs K7 ``fr_colsum``: only a direct ``fr_ops.sum_to_ints``
+# reaches it, as only a direct call reaches the reference's block_sums_128.
+_P2_PATH = ["fr_binop", "fr_weighted_colsum", "ntt_stage", "p2_permute",
+            "p2_permute2", "p2_merkle_level"]
 PATH_KERNELS = {
-    "poseidon2": ["fr_binop", "fr_weighted_colsum", "ntt_stage", "p2_permute",
-                  "p2_permute2", "p2_merkle_level"],
+    "poseidon2": _P2_PATH,
     "keccak": ["fr_binop", "fr_weighted_colsum", "ntt_stage", "kc_hash"],
+    "lookup": _P2_PATH,
+    "eager": _P2_PATH + ["fr_mul3_scalar"],
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-INT32_LANES = 132 * 64     # SMs x int32 lanes per SM and clock
+# SMs x thread-instructions issued per SM and clock (4 schedulers x 32
+# lanes): the ceiling over all pipes, so no mix of SASS runs faster
+ISSUE_LANES = 132 * 128
 
 # Straight-line probes of the kernels' building blocks; their SASS
 # instruction counts, less a load/store skeleton, price one operation.
@@ -226,9 +246,9 @@ def ptxas_summary(log: str) -> list:
 
 def bound(nbytes: float, instrs: float, clock_mhz: float):
     """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and SASS
-    integer instructions over the int32 issue rate."""
+    instructions over the card's instruction issue rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = instrs / (INT32_LANES * clock_mhz * 1e6)
+    t_ops = instrs / (ISSUE_LANES * clock_mhz * 1e6)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -432,52 +452,89 @@ def check_kernels(device, small: bool, costs: dict, clock_mhz: float) -> list:
                 lambda cols=cols: kc.hash_columns_plain(cols),
                 fe * (width + 1) * count, kc_instrs(width, count))
         for shape, cols, width, count in cases]))
-    del mat, mat4, d, left, right, cases
+    del mat4, d, left, right, cases
+
+    # K6 at the eager batch inversions' shapes: the open's (ζ−x, ζg−x) stack
+    # of 2·n_lde and the quotient's two selector denominators over 2 cosets
+    muls = []
+    for size in (2 * n, n // 2):
+        x = _rand_field((size,), gen, device)
+        y = _rand_field((size,), gen, device)
+        c = y[:, 6]
+        muls.append(measure("fr_mul3_scalar", f"(8,{size})",
+                            lambda x=x, y=y, c=c: kf.mul3_scalar(x, y, c),
+                            lambda x=x, y=y, c=c: kf.mul3_scalar_plain(x, y, c),
+                            fe * (3 * size + 1), 2 * size * costs["mul"]))
+        del x, y, c
+    rows.append(row_of(muls))
+
+    rows.append(measure("fr_colsum", f"(8,{w},{n})", lambda: kf.colsum(mat),
+                        lambda: kf.colsum_plain(mat), fe * w * (n + 1),
+                        w * n * costs["add"]))
+    del mat
     return rows
 
 
-def bench_inputs(log_height: int, hasher: str = "poseidon2"):
-    """bench.py's workload (``BENCH_HASHER`` = ``hasher``): 3x3 permutation
-    trace, seed 7, and the public challenges drawn from
-    random.Random(0xBE7C4)."""
+@functools.lru_cache(maxsize=4)
+def bench_inputs(log_height: int, hasher: str = "poseidon2", workload: str = "perm"):
+    """bench.py's workload (``BENCH_HASHER`` = ``hasher``, ``BENCH_WORKLOAD``
+    = ``workload``): a 3x3 permutation trace or a 3-column lookup into one
+    table, seed 7, and the public challenges drawn from
+    random.Random(0xBE7C4).  Cached: the 2^19-row lookup trace takes
+    seconds of host Python to generate."""
     import random
 
     from linea_stark_tpu_torch.config import FriConfig, StarkConfig
     from linea_stark_tpu_torch.field.constants import R_MOD
-    from linea_stark_tpu_torch.trace.synthetic import gen_permutation_trace
+    from linea_stark_tpu_torch.trace.synthetic import gen_lookup_trace, gen_permutation_trace
 
     rng = random.Random(0xBE7C4)
     alpha, delta = rng.randrange(R_MOD), rng.randrange(R_MOD)
     config = StarkConfig(fri=FriConfig(log_blowup=3, log_final_poly_len=0,
                                        num_queries=33, proof_of_work_bits=0),
                          hasher=hasher)
-    raw = gen_permutation_trace(3, 1 << log_height, seed=7)
+    if workload == "lookup":
+        raw = gen_lookup_trace(3, 1 << log_height, num_b_tables=1, seed=7)
+    else:
+        raw = gen_permutation_trace(3, 1 << log_height, seed=7)
     return config, raw, alpha, delta
 
 
-def golden_phase(device, hasher: str, path: str) -> None:
-    """Phases 3 and 5: the 2^12-row golden proof, byte for byte."""
-    from linea_stark_tpu_torch.challenger import HashChallenger
-    from linea_stark_tpu_torch.prover import prove
+def build_bench_trace(raw, alpha: int, delta: int, device):
+    """``build_trace`` of one bench workload's raw trace, as bench.py calls
+    it (no self-check)."""
+    from linea_stark_tpu_torch.trace.loader import RawLookupTrace
     from linea_stark_tpu_torch.trace.raw_trace import build_trace
 
-    config, raw, alpha, delta = bench_inputs(12, hasher)
+    if isinstance(raw, RawLookupTrace):
+        return build_trace([], [raw], alpha, delta, check=False, device=device)
+    return build_trace([raw], [], alpha, delta, check=False, device=device)
+
+
+def golden_phase(device, hasher: str, path: str, workload: str = "perm") -> None:
+    """Phases 3, 5, 7 and 9: a 2^12-row golden proof, byte for byte."""
+    from linea_stark_tpu_torch.challenger import HashChallenger
+    from linea_stark_tpu_torch.prover import prove
+
+    config, raw, alpha, delta = bench_inputs(12, hasher, workload)
     t0 = time.perf_counter()
-    built = build_trace([raw], [], alpha, delta, check=False, device=device)
+    built = build_bench_trace(raw, alpha, delta, device)
     proof = prove(config, built.air, built.matrix, [alpha, delta], HashChallenger())
     data = proof.to_bytes()
     dt = time.perf_counter() - t0
     with open(path, "rb") as f:
         want = f.read()
-    print(f"golden ({hasher}): 2^12 rows prove {dt:.3f} s, {len(data)} bytes, "
+    label = f"{hasher} {workload}, LINEA_FUSED={os.environ.get('LINEA_FUSED', '1')}"
+    print(f"golden ({label}): 2^12 rows prove {dt:.3f} s, {len(data)} bytes, "
           f"equal {data == want}", flush=True)
     if data != want:
-        raise AssertionError(f"golden proof bytes differ ({hasher})")
+        raise AssertionError(f"golden proof bytes differ ({label})")
 
 
-def main_path(device, hasher: str) -> dict:
-    """Phases 4 and 6: bench.py's workload at 2^19 rows through the port;
-    returns the launches of the timed prove."""
+def main_path(device, hasher: str, workload: str = "perm", label: str = None) -> dict:
+    """Phases 4, 6, 8 and 9: a bench.py workload at 2^19 rows through the
+    port; returns the launches of the timed prove.  ``label`` (default: the
+    hasher) names the path in the output and in :data:`PATH_KERNELS`."""
     import copy
 
     import torch
@@ -486,12 +543,12 @@ def main_path(device, hasher: str) -> dict:
     from linea_stark_tpu_torch.challenger import HashChallenger
     from linea_stark_tpu_torch.field import oracle
     from linea_stark_tpu_torch.prover import VerificationError, prove, verify
-    from linea_stark_tpu_torch.trace.raw_trace import build_trace
     from linea_stark_tpu_torch.utils import timing
 
-    config, raw, alpha, delta = bench_inputs(19, hasher)
+    label = label or hasher
+    config, raw, alpha, delta = bench_inputs(19, hasher, workload)
     t0 = time.perf_counter()
-    built = build_trace([raw], [], alpha, delta, check=False, device=device)
+    built = build_bench_trace(raw, alpha, delta, device)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -521,18 +578,38 @@ def main_path(device, hasher: str) -> dict:
         rejected = True
     else:
         rejected = False
-    print(f"main path ({hasher}): 2^19 rows trace build {build_s:.3f} s, warm-up "
+    print(f"main path ({label}): 2^19 rows trace build {build_s:.3f} s, warm-up "
           f"prove {warm_s:.3f} s, prove {prove_s:.3f} s, verify {verify_s:.3f} s, "
           f"peak memory {peak / 2**30:.3f} GiB, tampered rejected {rejected}, "
           f"proof {len(proof.to_bytes())} bytes", flush=True)
-    print(f"launches ({hasher}): {json.dumps(launches)}", flush=True)
+    print(f"launches ({label}): {json.dumps(launches)}", flush=True)
     profile_prove(lambda: prove(config, built.air, built.matrix, [alpha, delta],
-                                HashChallenger()), hasher)
+                                HashChallenger()), label)
     if not rejected:
-        raise AssertionError(f"tampered proof was accepted ({hasher})")
-    idle = [k for k in PATH_KERNELS[hasher] if launches[k] == 0]
+        raise AssertionError(f"tampered proof was accepted ({label})")
+    idle = [k for k in PATH_KERNELS[label] if launches[k] == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the {hasher} path: {idle}")
+        raise AssertionError(f"kernels never launched on the {label} path: {idle}")
+    return launches
+
+
+def eager_phase(device) -> dict:
+    """Phase 9: the golden and the lookup main path under LINEA_FUSED=0
+    (the variable is restored afterwards); returns the main path's
+    launches."""
+    old = os.environ.get("LINEA_FUSED")
+    os.environ["LINEA_FUSED"] = "0"
+    try:
+        golden_phase(device, "poseidon2", GOLDEN)
+        launches = main_path(device, "poseidon2", "lookup", label="eager")
+    finally:
+        if old is None:
+            del os.environ["LINEA_FUSED"]
+        else:
+            os.environ["LINEA_FUSED"] = old
+    if launches["fr_mul3_scalar"] < 2:
+        raise AssertionError("the eager prove launched fr_mul3_scalar "
+                             f"{launches['fr_mul3_scalar']} times, not at least twice")
     return launches
 
 
@@ -587,12 +664,22 @@ def main() -> int:
 
     rows = check_kernels(device, small=False, costs=costs, clock_mhz=clock_mhz)
     golden_phase(device, "poseidon2", GOLDEN)
-    launches = main_path(device, "poseidon2")
+    paths = {"poseidon2": main_path(device, "poseidon2")}
     golden_phase(device, "keccak", GOLDEN_KECCAK)
-    launches_kc = main_path(device, "keccak")
-    for row in rows:  # each kernel's launches on the path that uses it
-        path = launches if row["name"] in PATH_KERNELS["poseidon2"] else launches_kc
-        row["launches"] = path[row["name"]]
+    paths["keccak"] = main_path(device, "keccak")
+    golden_phase(device, "poseidon2", GOLDEN_LOOKUP, "lookup")
+    paths["lookup"] = main_path(device, "poseidon2", "lookup", label="lookup")
+    paths["eager"] = eager_phase(device)
+    for row in rows:  # each kernel's launches on the first path that uses it
+        name = row["name"]
+        users = [p for p in paths if name in PATH_KERNELS[p]]
+        if users:
+            row["launches"] = paths[users[0]][name]
+        else:
+            row["launches"] = max(p[name] for p in paths.values())
+            row["launches_note"] = "no prove path calls it: only a direct fr_ops.sum_to_ints"
+            if row["launches"]:
+                raise AssertionError(f"{name} launched on a prove path")
     print(f"gpu: {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,18 @@
 // across its sequential grid; here blocks run in parallel, so pass 1 writes
 // one partial per (column, block) and pass 2 folds them to W values on the
 // device.  Field addition is exact, so the order of the sums is free.
+//
+// fr_mul3_scalar replaces pallas_field.mul3_scalar, the finish of the eager
+// batch inversion: out[i] = (a[i] * b[i]) * c with c one scalar, read once
+// per thread.  Two Montgomery products for 96 B moved: integer issue bounds
+// it, as it does K1's mul.  a and b are strided views like K1's operands.
+//
+// fr_colsum_partials + fr_sum_finish replace pallas_field.block_sums_128:
+// sum_j x[c, j] for every column, K2's two passes without the multiply.  The
+// TPU carried 128 partials per column across its sequential grid; here pass
+// 1 writes one partial per (column, block) and pass 2 folds them on the
+// device.  32 B read per element and one add (~50 instructions): device
+// memory bounds it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,6 +107,41 @@ __global__ void wsum_partials_kernel(const uint32_t* __restrict__ mat,
   }
 }
 
+__global__ void mul3_scalar_kernel(const uint32_t* __restrict__ a,
+                                   uint64_t a_stride,
+                                   const uint32_t* __restrict__ b,
+                                   uint64_t b_stride,
+                                   const uint32_t* __restrict__ c,
+                                   uint64_t c_stride,
+                                   uint32_t* __restrict__ out, uint64_t n) {
+  const fr::fe s = fr::load(c, c_stride, 0);
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * blockDim.x) {
+    const fr::fe ab = fr::mul(fr::load(a, a_stride, i), fr::load(b, b_stride, i));
+    fr::store(out, n, i, fr::mul(ab, s));
+  }
+}
+
+// grid (nblk, W): block (blk, c) sums x[c, j] over j = blk*T + t (mod
+// nblk*T) into partials[k, c, blk].
+__global__ void sum_partials_kernel(const uint32_t* __restrict__ x,
+                                    uint64_t limb_stride, uint64_t col_stride,
+                                    uint64_t n, uint32_t* __restrict__ partials) {
+  __shared__ uint32_t sh[fr::W][kThreads];
+  const int c = blockIdx.y;
+  const uint32_t* col = x + c * col_stride;
+  fr::fe acc = fr::zero();
+  for (uint64_t j = blockIdx.x * (uint64_t)kThreads + threadIdx.x; j < n;
+       j += (uint64_t)gridDim.x * kThreads) {
+    acc = fr::add(acc, fr::load(col, limb_stride, j));
+  }
+  acc = block_sum(acc, sh);
+  if (threadIdx.x == 0) {
+    const uint64_t w = gridDim.y, nblk = gridDim.x;
+    fr::store(partials, w * nblk, (uint64_t)c * nblk + blockIdx.x, acc);
+  }
+}
+
 // grid (W): out[k, c] = sum_b partials[k, c, b].
 __global__ void sum_finish_kernel(const uint32_t* __restrict__ partials,
                                   uint64_t nblk, uint32_t* __restrict__ out) {
@@ -135,6 +182,25 @@ int fr_wsum_partials(const uint32_t* mat, long long limb_stride,
   dim3 grid(nblk, w);
   wsum_partials_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       mat, limb_stride, col_stride, u, u_stride, n, partials);
+  return (int)cudaGetLastError();
+}
+
+int fr_mul3_scalar(const uint32_t* a, long long a_stride, const uint32_t* b,
+                   long long b_stride, const uint32_t* c, long long c_stride,
+                   uint32_t* out, long long n, void* stream) {
+  if (n > 0) {
+    mul3_scalar_kernel<<<grid_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+        a, a_stride, b, b_stride, c, c_stride, out, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fr_colsum_partials(const uint32_t* x, long long limb_stride,
+                       long long col_stride, int w, long long n,
+                       uint32_t* partials, int nblk, void* stream) {
+  dim3 grid(nblk, w);
+  sum_partials_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      x, limb_stride, col_stride, n, partials);
   return (int)cudaGetLastError();
 }
 

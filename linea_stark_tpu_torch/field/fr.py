@@ -184,6 +184,11 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _narrow(torch.stack(out))
 
 
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """(8, *batch) words -> (*batch) bool: the element is 0 (in any form)."""
+    return (a == 0).all(dim=0)
+
+
 def _align(x: torch.Tensor, batch) -> torch.Tensor:
     """Broadcast (L, *b) to (L, *batch), batch axes right-aligned."""
     pad = (1,) * (len(batch) - (x.dim() - 1))

@@ -1,6 +1,6 @@
-"""Field ops for prover-level code: each O(N) operation goes through the K1/K2
-kernel wrappers, which launch the CUDA kernel for a CUDA tensor and run the
-plain PyTorch version for a CPU tensor.
+"""Field ops for prover-level code: each O(N) operation goes through the K1,
+K2, K6 or K7 kernel wrappers, which launch the CUDA kernel for a CUDA tensor
+and run the plain PyTorch version for a CPU tensor.
 
 Operands are ``(8, *batch)`` int32 tensors whose batch axes broadcast
 numpy-style, right-aligned (axis 0 is always the words).  The second operand
@@ -122,21 +122,37 @@ def powers(base_int: int, count: int, device=None) -> torch.Tensor:
     return p[:, :count]
 
 
-def _shift_fill(x: torch.Tensor, k: int, fill: torch.Tensor) -> torch.Tensor:
-    """Shift right along the last axis by k, filling with ``fill``."""
+def _shift_fill(x: torch.Tensor, k: int, fill: torch.Tensor,
+                reverse: bool = False) -> torch.Tensor:
+    """Shift along the last axis by k (right, or left with ``reverse``),
+    filling the vacated slots with ``fill``."""
     pad = fill.expand(x.shape[:-1] + (k,))
+    if reverse:
+        return torch.cat([x[..., k:], pad], dim=-1)
     return torch.cat([pad, x[..., : x.shape[-1] - k]], dim=-1)
 
 
-def prefix_product(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix product along the last axis: log2(N) full-width
-    multiplies (Hillis-Steele doubling)."""
-    one = fr.ones((1,) * (x.dim() - 1), device=x.device)
+def _doubling_scan(x: torch.Tensor, op: str, reverse: bool) -> torch.Tensor:
+    """Inclusive scan along the last axis: log2(N) full-width K1 launches
+    (Hillis-Steele doubling, each step combining x with itself shifted by k
+    and identity-filled)."""
+    combine = mul if op == "mul" else add
+    ident = fr.full((1,) * (x.dim() - 1), 1 if op == "mul" else 0, device=x.device)
     k = 1
     while k < x.shape[-1]:
-        x = mul(x, _shift_fill(x, k, one))
+        x = combine(x, _shift_fill(x, k, ident, reverse))
         k *= 2
     return x
+
+
+def prefix_product(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix (suffix with ``reverse``) product along the last axis."""
+    return _doubling_scan(x, "mul", reverse)
+
+
+def prefix_sum(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix (suffix with ``reverse``) sum along the last axis."""
+    return _doubling_scan(x, "add", reverse)
 
 
 _INV_BLOCK = 64
@@ -178,7 +194,44 @@ def batch_inverse(x: torch.Tensor) -> torch.Tensor:
     return res[:, :t].reshape(shape)
 
 
+def batch_inverse_eager(x: torch.Tensor) -> torch.Tensor:
+    """Invert every element (all must be nonzero): the reference's eager
+    form, which its ``LINEA_FUSED=0`` phases take.  The whole tensor is one
+    flat batch: prefix and suffix doubling products (2·log2(N) K1 launches),
+    the total read back and inverted on the host by Fermat (a sync), then
+    inv(x[i]) = prefix[i-1]·suffix[i+1]·inv(total) in one K6 launch."""
+    flat = _flat(x)
+    pre = prefix_product(flat)
+    suf = prefix_product(flat, reverse=True)
+    total = fr.unpack_ints(pre[:, -1:])[0]
+    total_inv = fr.const(oracle.inv(total), device=x.device)
+    one = fr.ones((1,), device=x.device)
+    out = kf.mul3_scalar(_shift_fill(pre, 1, one), _shift_fill(suf, 1, one, reverse=True),
+                         total_inv)
+    return out.reshape(x.shape)
+
+
 def weighted_sums_to_ints(mat: torch.Tensor, u: torch.Tensor) -> list:
     """sum_j mat[:, c, j]·u[:, j] per column of (8, W, N); W canonical ints
     (one fused multiply-and-sum launch pair for all columns)."""
     return fr.unpack_ints(kf.weighted_colsum(mat, u))
+
+
+def sum_to_ints(x: torch.Tensor) -> list:
+    """Field sum along the last axis of (8, W, N); W canonical ints.  One K7
+    launch pair for N >= 128, the halving adds of :func:`tree_sum` below."""
+    sums = kf.colsum(x) if x.shape[-1] >= 128 else tree_sum(x)
+    return fr.unpack_ints(sums)
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Field sum along the last axis by halving adds (an odd last element
+    joins the first partial sum)."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        half = n // 2
+        s = add(x[..., :half], x[..., half:2 * half])
+        if n % 2:
+            s = torch.cat([add(s[..., :1], x[..., n - 1:]), s[..., 1:]], dim=-1)
+        x = s
+    return x[..., 0]

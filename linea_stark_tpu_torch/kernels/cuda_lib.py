@@ -35,6 +35,8 @@ _SIGNATURES = {
     "fr_binop": [_I, _P, _LL, _P, _LL, _LL, _LL, _P, _LL, _P],
     "fr_wsum_partials": [_P, _LL, _LL, _I, _P, _LL, _LL, _P, _I, _P],
     "fr_sum_finish": [_P, _I, _I, _P, _P],
+    "fr_mul3_scalar": [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P],
+    "fr_colsum_partials": [_P, _LL, _LL, _I, _LL, _P, _I, _P],
     "ntt_stage": [_I, _P, _P, _LL, _LL, _LL, _P, _LL, _P],
     "p2_set_constants": [_P, _I],
     "p2_permute": [_P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _LL, _I, _I, _P],

@@ -14,6 +14,7 @@ grouped (arity, N/arity), so one leaf feeds the next round's fold.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import torch
@@ -31,6 +32,15 @@ from ..utils.timing import span
 
 class VerificationError(Exception):
     pass
+
+
+def _fused() -> bool:
+    """The phase mode, read from ``LINEA_FUSED`` at call time (default "1").
+    "0" selects the reference's eager phases: the quotient's and the open's
+    batch inversions take :func:`..fr_ops.batch_inverse_eager` (finished by
+    K6); nothing else changes.  The proof bytes are the same in both
+    modes."""
+    return os.environ.get("LINEA_FUSED", "1") != "0"
 
 
 def _chunk_ldes_impl(chunks, log_blowup: int, shift: int, omega_lde: int):
@@ -128,7 +138,8 @@ class TwoAdicFriPcs:
         di = (8, 2, n_lde) inverses of (ζ−x, ζ·g−x)."""
         with span("compute_inverse_denominators"):
             dev = x_vec.device
-            di = fo.batch_inverse(torch.stack([
+            inverse = fo.batch_inverse if _fused() else fo.batch_inverse_eager
+            di = inverse(torch.stack([
                 fo.sub(fr.const(zeta, device=dev), x_vec),
                 fo.sub(fr.const(zeta_next, device=dev), x_vec),
             ], dim=1))

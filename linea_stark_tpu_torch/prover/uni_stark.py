@@ -32,7 +32,7 @@ from ..field import fr, oracle
 from ..field.constants import R_MOD
 from ..ntt.ntt import root_of_unity
 from ..pcs import make_pcs
-from ..pcs.two_adic_fri import VerificationError
+from ..pcs.two_adic_fri import VerificationError, _fused
 from ..utils.timing import span
 from .proof import Proof
 
@@ -122,7 +122,8 @@ def compute_quotient(trace_lde: torch.Tensor, air: LineaAir, alpha: int,
     last = pow(omega_n, n - 1, R_MOD)
     x_minus_last = fo.sub(x_vec, fr.const(last, device=dev))
     # one inversion for both selector denominators
-    sel_inv = fo.batch_inverse(
+    inverse = fo.batch_inverse if _fused() else fo.batch_inverse_eager
+    sel_inv = inverse(
         torch.cat([fo.sub(x_vec, fr.const(1, device=dev)), x_minus_last], dim=-1)
     )
     x_minus_1_inv = sel_inv[..., :n]
